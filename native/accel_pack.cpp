@@ -1,7 +1,7 @@
 // Native host-side acceleration-structure packer.
 //
 // The reference's BVH build is C++ (BVH::build, reference src/bvh.h:262-394);
-// this is the TPU framework's native equivalent for the host tier: Morton
+// this is the framework's native equivalent for the host tier: Morton
 // ordering, per-triangle Woop inverse transforms and leaf AABBs in one
 // multi-pass over the triangle soup.  The Python/numpy implementation in
 // scene/accel.py + ops/intersect.py remains the reference implementation and

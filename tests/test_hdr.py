@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from tpu_pathtracer.utils.hdr import load_hdr_rgba_ldr, read_hdr, write_hdr
+from tpu_pathtracer.utils.hdr import decode_hdr_rgba_ldr, read_hdr, write_hdr
 
 
 def test_hdr_roundtrip_linear(tmp_path):
@@ -43,7 +43,8 @@ def test_hdr_ldr_matches_stb_semantics(tmp_path):
         [[[0.0, 0.5, 1.0], [2.0, 8.0, 0.001]]], dtype=np.float32
     )
     p = write_hdr(str(tmp_path / "l.hdr"), vals)
-    out = load_hdr_rgba_ldr(p)
+    with open(p, "rb") as f:
+        out = decode_hdr_rgba_ldr(f.read())
     lin = read_hdr(p)  # post-RGBE-quantization linear values
     expect = np.clip(
         (np.power(lin, 1 / 2.2) * 255 + 0.5).astype(np.int32), 0, 255

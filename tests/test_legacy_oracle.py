@@ -1,6 +1,6 @@
 """Analytic oracles for the homebrew (legacy) integrators.
 
-VERDICT r1 asked for an oracle beyond smoke tests.  The compiled C++
+These go beyond smoke tests.  The compiled C++
 reference CANNOT be that oracle: no homebrew scene is triangle-only (every
 practice5_* scene has an infinite PLANE, which glTF cannot express), and the
 course's MC material semantics (pure Lambert diffuse) differ from the final

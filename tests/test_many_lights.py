@@ -1,4 +1,4 @@
-"""Many-light scaling: the blocked light-mixture pdf (VERDICT r1 #9).
+"""Many-light scaling: the blocked light-mixture pdf.
 
 The reference handles many emissive triangles with its light BVH
 (src/raytracer.h:350-376); our dense reduce must survive L ~ 1000 without
@@ -43,56 +43,6 @@ def test_blocked_pdf_matches_dense_oracle():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
 
 
-def test_clustered_pdf_matches_dense_oracle():
-    """The Pallas cluster-worklist pdf (light_pdf_sum_chunks) must agree
-    with the dense reduce to fp noise — including rays that pierce nothing
-    (zero), clusters with partial validity (count < capacity), and the
-    division-by-count normalization."""
-    from tpu_pathtracer.ops.pallas_intersect import light_pdf_sum_chunks
-    from tpu_pathtracer.scene.accel import light_clusters
-
-    rng = np.random.default_rng(5)
-    L, R = 1000, 256
-    a = rng.uniform(-5, 5, (L, 1, 3))
-    verts = np.concatenate([a, a + rng.uniform(-1, 1, (L, 2, 3))], axis=1)
-    cap = 1024
-    lverts = np.full((cap, 3, 3), 1e30)
-    lverts[:L] = verts
-    count = 937  # non-multiple of the 128 cluster width
-    e1, e2 = verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0]
-    n = np.cross(e1, e2)
-    area = 0.5 * np.linalg.norm(n, axis=-1)
-    n = n / np.linalg.norm(n, axis=-1, keepdims=True)
-
-    o = rng.uniform(-6, 6, (R, 3)).astype(np.float32)
-    d = rng.normal(size=(R, 3))
-    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
-    # Some rays aimed away from everything (zero contribution).
-    o[:16] = 100.0
-    d[:16] = np.array([1, 0, 0], np.float32)
-
-    want = np.asarray(
-        light_pdf_sum(
-            jnp.asarray(o), jnp.asarray(d),
-            jnp.asarray(lverts[:L], jnp.float32), jnp.asarray(n, jnp.float32),
-            jnp.asarray(area, jnp.float32), jnp.asarray(count, jnp.int32),
-            1e-4,
-        )
-    )
-    cl_min, cl_max, cl_woop, cl_k = light_clusters(lverts, count)
-    got = np.asarray(
-        light_pdf_sum_chunks(
-            jnp.asarray(o), jnp.asarray(d), jnp.asarray(cl_woop),
-            jnp.asarray(cl_k), jnp.asarray(cl_min), jnp.asarray(cl_max),
-            jnp.asarray(count, jnp.int32), 1e-4, ray_tile=128,
-            interpret=True,
-        )
-    )
-    assert (want > 0).sum() > 10
-    np.testing.assert_array_equal(got[:16], 0.0)
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-6)
-
-
 def test_thousand_light_scene_renders(tmp_path):
     """A scene with ~1000 emissive triangles renders (blocked pdf path)
     and the lit floor is brighter than the unlit control."""
@@ -130,48 +80,6 @@ def test_thousand_light_scene_renders(tmp_path):
     scene0 = dataclasses.replace(scene0, camera=scene0.camera.with_dims(16, 16))
     img0 = render(scene0, spp=2, seed=0)
     assert img.mean() > img0.mean()
-
-
-def test_clustered_pdf_windowed_matches_single(monkeypatch):
-    """At huge cluster counts the item worklist is split into SMEM-budget
-    windows whose running sums chain through the kernel's sum0 input
-    (one unsplit [3, T*c] row exceeds the 1 MB SMEM past ~650 clusters —
-    code-review r3 finding).  Forcing tiny windows must not change a
-    single value vs the one-window path, including tiles whose items span
-    a window boundary and windows holding only padding."""
-    from tpu_pathtracer.ops import pallas_intersect as pi
-    from tpu_pathtracer.scene.accel import light_clusters
-
-    rng = np.random.default_rng(11)
-    L = 1000
-    a = rng.uniform(-5, 5, (L, 1, 3))
-    verts = np.concatenate([a, a + rng.uniform(-1, 1, (L, 2, 3))], axis=1)
-    cap = 1024
-    lverts = np.full((cap, 3, 3), 1e30)
-    lverts[:L] = verts
-    count = 937
-    o = rng.uniform(-6, 6, (256, 3)).astype(np.float32)
-    d = rng.normal(size=(256, 3))
-    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
-    cl_min, cl_max, cl_woop, cl_k = light_clusters(lverts, count)
-
-    def run():
-        pi.light_pdf_sum_chunks.clear_cache()
-        return np.asarray(
-            pi.light_pdf_sum_chunks(
-                jnp.asarray(o), jnp.asarray(d), jnp.asarray(cl_woop),
-                jnp.asarray(cl_k), jnp.asarray(cl_min), jnp.asarray(cl_max),
-                jnp.asarray(count, jnp.int32), 1e-4, ray_tile=128,
-                interpret=True,
-            )
-        )
-
-    one = run()  # default window covers all 2 x 8 items
-    monkeypatch.setenv("TPU_PT_LIGHT_ITEMS", "3")  # force many tiny windows
-    many = run()
-    pi.light_pdf_sum_chunks.clear_cache()
-    assert (one > 0).sum() > 10
-    np.testing.assert_array_equal(one, many)
 
 
 def test_flat_pdf_matches_dense_oracle():

@@ -1,7 +1,7 @@
 """Real-world-shaped asset golden (spp sized so MC noise sits
 well inside the bounds: at ref 384 / ours 192 the measured point is
 mean_diff ~1.3 / RMSE ~20 vs bounds 4 / 30; halving spp doubles both
-onto the bound — see /tmp maxdiag in round-5 notes) (VERDICT r4 missing #2 / next #5).
+onto the bound).
 
 One maximal glTF exercises every loader axis the course assets would: JPEG +
 PNG textures (60+ in one atlas), u8/u16/u32 index buffers, triangle strips,
@@ -9,7 +9,7 @@ mesh instancing under different TRS nodes, nested node groups, raw matrix
 nodes, and normal/emissive/MR textures — rendered by BOTH implementations
 and compared at MC-noise scale, exactly like tests/test_fuzz_parity.py.
 
-JPEG decode note: our loader decodes via PIL, the reference via stb_image;
+JPEG decode note: our loader decodes JPEG via Pillow, the reference via stb_image;
 their IDCTs differ by ~1 u8 per texel at quality 95, which the existing
 mean/RMSE noise bounds absorb (verified: bounds hold with margin).
 """

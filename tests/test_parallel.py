@@ -66,11 +66,10 @@ def test_sharded_sample_start_offset(scene):
 
 @pytest.fixture(scope="module")
 def big_scene(tmp_path_factory):
-    """capacity > 1024 + >= 2048 rays/rank: the sorted large-scene branch
+    """capacity > 1024: the sorted large-scene branch
     (per-bounce argsort permutation carries, leaf traversal, compaction)
-    actually executes under shard_map — round 3's multi-device tests all
-    used a 16x16 Cornell whose capacity <= 1024 took the dense sweep
-    (VERDICT r3 weak #3)."""
+    actually executes under shard_map (a 16x16 Cornell's capacity <= 1024
+    takes the dense sweep)."""
     from tpu_pathtracer.utils.testscenes import make_sphere_field_gltf
 
     p = make_sphere_field_gltf(
@@ -78,7 +77,7 @@ def big_scene(tmp_path_factory):
         n_spheres=8, subdiv=2, textured=True,
     )
     s = parse_gltf_scene(p, 2.0)
-    # 8192 pixels = 2048 rays/rank on a rays=4 mesh (the sort threshold).
+    # 8192 pixels = 2048 rays/rank on a rays=4 mesh.
     return dataclasses.replace(s, camera=s.camera.with_dims(128, 64))
 
 
@@ -102,59 +101,9 @@ def test_sharded_large_scene_sort_path(big_scene):
     assert stats_sharded["measured_rays"] == stats_single["measured_rays"]
 
 
-def test_pallas_intersector_traces_under_shard_map(big_scene):
-    """Regression: the Pallas cascade must TRACE inside jax.shard_map.
-
-    The first real-chip render_pass_sharded run (round 4) failed at TRACE
-    time: under check_vma=True every pl.pallas_call out_shape must declare
-    its varying-manual-axes, and none did (pallas_intersect._vma_of).  The
-    CPU-mesh render tests cannot catch this because off-TPU backends take
-    the gather-traversal path — so this test traces the Pallas kernel
-    (compiled form, interpret=False: abstract eval only needs shapes)
-    inside a shard_map over both mesh axes with varying rays and a
-    replicated scene, exactly like render_pass_sharded composes them.
-    eval_shape reproduces the chip failure mode; on-silicon numerics are
-    pinned by scripts/sharded_chip_artifact.py (out/sharded_chip_r4.json).
-    Note interpret=True would NOT work here even with the fix: the HLO
-    interpreter inlines kernel ops into the vma-typed outer program, where
-    mixed replicated/varying kernel operands trip primitive vma checks —
-    an interpreter limitation the Mosaic path (closed kernel jaxpr) does
-    not share."""
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-
-    from tpu_pathtracer.models.pathtracer import gen_rays
-    from tpu_pathtracer.ops.pallas_intersect import closest_hit_chunks
-
-    s = big_scene
-    mesh = make_mesh(rays=4, spp=2)
-    n_local = 512
-    offs = (jnp.full((n_local,), 0.5), jnp.full((n_local,), 0.5))
-
-    def body(scene_rep):
-        ray_idx = jax.lax.axis_index("rays")
-        pix = ray_idx * n_local + jnp.arange(n_local)
-        o, d = gen_rays(scene_rep.camera, pix, offs)
-        hit = closest_hit_chunks(
-            o, d, scene_rep.chunk_woop, scene_rep.chunk_aabb_min,
-            scene_rep.chunk_aabb_max, scene_rep.woop, 1e-4,
-        )
-        # Outputs vary over 'rays' only (spp ranks duplicate the work).
-        return hit.t, hit.tri
-
-    scene_specs = jax.tree.map(lambda _: P(), s)
-    fn = jax.shard_map(
-        body, mesh=mesh, in_specs=(scene_specs,),
-        out_specs=(P("rays"), P("rays")),
-    )
-    t_s, tri_s = jax.eval_shape(fn, s)
-    assert t_s.shape == (4 * n_local,)
-    assert tri_s.shape == (4 * n_local,)
-
-
 def test_multihost_checkpoint_resume(scene, tmp_path):
     """A killed-and-resumed multihost render matches the uninterrupted one
-    BIT-exactly (VERDICT r3 next #5): pass sums accumulate in the same fp
+    BIT-exactly: pass sums accumulate in the same fp
     order, and sample_start makes the resumed slices the exact missing
     samples."""
     from tpu_pathtracer.parallel.multihost import render_multihost

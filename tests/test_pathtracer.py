@@ -82,7 +82,7 @@ def test_measured_rays_stats(tmp_path):
     engine: at least one ray per (useful pixel, sample) work item, at most
     ray_depth of them — and none for the ray-tile padding (the work pool is
     dense over useful pixels, so out-of-image lanes are never spawned;
-    code-review r3: padding used to inflate both work and the count)."""
+    padding would inflate both work and the count)."""
     scene = _load(make_cornell_gltf, tmp_path, 16, 16)
     config = RenderConfig(compaction=True)
     spp = 4
@@ -90,7 +90,7 @@ def test_measured_rays_stats(tmp_path):
     img = render(scene, spp=spp, seed=0, config=config, stats=stats)
     assert np.isfinite(img).all()
     n = stats["measured_rays"]
-    npix = 16 * 16  # chunk pads to the 512-lane ray tile; counts must not
+    npix = 16 * 16
     assert npix * spp <= n <= npix * spp * scene.ray_depth
     # Cornell is mostly enclosed: typical paths bounce more than once.
     assert n > int(1.5 * npix * spp)
@@ -246,7 +246,7 @@ def test_chunk_retry_recovers_exactly(tmp_path, monkeypatch):
     want = render(scene, spp=3, seed=4)
 
     class Bomb:
-        """Accumulator whose readback raises like a crashed TPU worker."""
+        """Accumulator whose readback raises like a crashed device worker."""
 
         def __init__(self, arr):
             self.arr = arr
@@ -258,10 +258,10 @@ def test_chunk_retry_recovers_exactly(tmp_path, monkeypatch):
             return Bomb(self.arr + getattr(other, "arr", other))
 
         def __getitem__(self, sl):
-            raise RuntimeError("TPU worker process crashed (simulated)")
+            raise RuntimeError("device worker process crashed (simulated)")
 
         def __array__(self, *a, **kw):
-            raise RuntimeError("TPU worker process crashed (simulated)")
+            raise RuntimeError("device worker process crashed (simulated)")
 
     # Poison the FIRST chunk's first dispatch only; the retry recomputes it
     # through the (restored) real engine.
@@ -292,9 +292,9 @@ def test_chunk_retry_recovers_exactly(tmp_path, monkeypatch):
 
 def test_sort_keys_observationally_free(tmp_path):
     """Wavefront ray sorting is a pure perf knob: every sort_key policy
-    (hint / cell / target) renders the bit-identical image, because per-pixel
+    (hint / cell / dirhint) renders the bit-identical image, because per-pixel
     counter RNG makes ray order irrelevant to each path's draws.  Engages the
-    real sort path: scene capacity > 1024 and wavefront width >= 2048."""
+    real sort path: scene capacity > 1024."""
     from tpu_pathtracer.utils.testscenes import make_sphere_field_gltf
 
     p = make_sphere_field_gltf(
@@ -307,7 +307,7 @@ def test_sort_keys_observationally_free(tmp_path):
     assert scene.capacity > 1024
     imgs = [
         render(scene, spp=1, seed=5, config=RenderConfig(sort_key=k))
-        for k in ("hint", "cell", "target")
+        for k in ("hint", "cell", "dirhint")
     ]
     assert np.isfinite(imgs[0]).all() and imgs[0].max() > 0.01
     np.testing.assert_array_equal(imgs[0], imgs[1])
@@ -315,9 +315,8 @@ def test_sort_keys_observationally_free(tmp_path):
 
 
 def test_unknown_sort_key_rejected(tmp_path):
-    """Typos must fail loudly (same contract as TPU_PT_INTERSECT): a silent
-    fall-through to the 'cell' key would ship the wrong variant's timing in
-    a BENCH_SORT campaign."""
+    """Typos must fail loudly: a silent fall-through to the 'cell' key would
+    time the wrong variant in an A/B."""
     import pytest
 
     from tpu_pathtracer.utils.testscenes import make_sphere_field_gltf
@@ -397,7 +396,7 @@ def test_packed_permute_estimator_identical(tmp_path):
 
 
 def test_lowdisc_sobol_unbiased_and_quieter(tmp_path):
-    """lowdisc='sobol' (Owen-Sobol VNDF + light-point pairs, VERDICT r4 #6)
+    """lowdisc='sobol' (Owen-Sobol VNDF + light-point pairs)
     keeps the estimator mean (unbiased: Owen scrambling preserves the
     uniform marginal of every draw) while reducing per-pixel variance on a
     light-sampling-dominated scene.  Both engines dispatch it identically

@@ -162,8 +162,7 @@ def test_non_indexed_triangles(tmp_path):
 
 def test_atrium_bench_scene_enclosed(tmp_path):
     """The enclosed benchmark scene (make_atrium_gltf) must actually be
-    enclosed — the whole point vs the round-2 open sphere field (VERDICT r2
-    missing #3): random interior rays all hit geometry, light comes only
+    enclosed — the whole point vs the open sphere field: random interior rays all hit geometry, light comes only
     from the ceiling-aperture panels, and the camera looks down the hall."""
     import jax.numpy as jnp
 
@@ -234,21 +233,23 @@ def test_sah_chunk_order_permutation_and_tightness():
     assert sa_sah < sa_morton
 
 
-def test_sah_vs_morton_render_agree(tmp_path, monkeypatch):
-    """Triangle order is estimator-internal: TPU_PT_BUILD=sah and =morton
+def test_sah_vs_morton_render_agree(tmp_path):
+    """Triangle order is estimator-internal: build="sah" and "morton"
     renders of the same scene must agree to the MC noise floor (per-sample
     streams differ because the uniform light pick indexes a permuted light
     array, so this is a statistical check, not bit equality)."""
     import dataclasses
 
-    from tpu_pathtracer.config import RenderConfig
+    from tpu_pathtracer.config import IntersectTuning, RenderConfig
     from tpu_pathtracer.models.pathtracer import render
 
     p = make_cornell_gltf(str(tmp_path / "c.gltf"))
-    config = RenderConfig(rays_per_batch=4096, spp_per_pass=16)
     imgs = {}
     for mode, seed in (("sah", 5), ("morton", 5), ("morton2", 11)):
-        monkeypatch.setenv("TPU_PT_BUILD", mode.rstrip("2"))
+        config = RenderConfig(
+            rays_per_batch=4096, spp_per_pass=16,
+            tuning=IntersectTuning(build=mode.rstrip("2")),
+        )
         scene = parse_gltf_scene(p, 1.0, config)
         scene = dataclasses.replace(
             scene, camera=scene.camera.with_dims(48, 48)
@@ -288,3 +289,54 @@ def test_sah_chunk_order_degenerate_inputs():
     # No valid triangles at all.
     perm3 = sah_chunk_order(verts, np.zeros(512, bool), 128)
     assert sorted(perm3.tolist()) == list(range(512))
+
+
+def test_empty_light_clusters_are_nan():
+    """Light clusters holding no light get NaN (never-hit) boxes."""
+    from tpu_pathtracer.scene.accel import light_clusters
+
+    rng = np.random.default_rng(9)
+    lv = np.zeros((256, 3, 3), np.float64)
+    lv[:40] = rng.uniform(-2, 2, size=(40, 3, 3))
+    cl_min, cl_max, _, _ = light_clusters(lv, count=40, cluster=128)
+    assert np.isnan(cl_min[1]).all() and np.isnan(cl_max[1]).all()
+    assert np.isfinite(cl_min[0]).all()
+
+
+def test_padding_chunks_are_nan_boxes():
+    """All-padding chunks must be NEVER-HIT (NaN boxes), not inverted
+    +inf/-inf boxes: a slab test that swaps per-axis min/max turns an
+    inverted box's infinities into t_lo=-inf / t_hi=+inf, i.e. an always-hit
+    box with the least possible entry distance.  The partial last block of
+    the chunk Woop layout is NaN-padded the same way."""
+    from tpu_pathtracer.ops.intersect import build_woop, tri_capacity
+    from tpu_pathtracer.scene.accel import (
+        CHUNK_TRIS, LEAF_SIZE, build_leaves, chunk_aabbs, leaf_woop,
+        morton_order,
+    )
+
+    # 1100 tris -> capacity 2048 (TRI_BLOCK multiple) -> chunks 9..15 are
+    # all-padding.
+    rng = np.random.default_rng(7)
+    n = 1100
+    cap = tri_capacity(n)
+    verts = np.full((cap, 3, 3), 1e30)
+    verts[:n] = rng.uniform(-5, 5, (n, 1, 3)) + rng.uniform(-0.5, 0.5, (n, 3, 3))
+    valid = np.arange(cap) < n
+    perm = morton_order(verts, valid)
+    verts, valid = verts[perm], valid[perm]
+    lmin, lmax = build_leaves(verts, valid, LEAF_SIZE)
+    cmin, cmax = chunk_aabbs(lmin, lmax, CHUNK_TRIS // LEAF_SIZE)
+    pad_chunks = ~np.isfinite(cmin[:, 0])
+    assert pad_chunks.sum() >= 2 and pad_chunks[-1]
+    assert np.isnan(cmin[pad_chunks]).all() and np.isnan(cmax[pad_chunks]).all()
+    assert np.isfinite(cmin[~pad_chunks]).all()
+
+    woop = build_woop(verts[:1000], valid[:1000])  # 1000 = 7 * 128 + 104
+    blocks = leaf_woop(woop, CHUNK_TRIS)
+    assert blocks.shape == (8, 12, CHUNK_TRIS)
+    assert np.isnan(blocks[7, :, 104:]).all()
+    np.testing.assert_array_equal(
+        blocks[:, :, :].reshape(8, 3, 4, CHUNK_TRIS)[0, :, :, 5],
+        woop.reshape(4, -1, 3)[:, 5, :].T,
+    )

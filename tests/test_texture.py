@@ -153,8 +153,7 @@ def test_quad_pool_bit_equal(tmp_path):
     """The corner-quad pool path (one 16-float row gather per texture) is
     bit-equal to the flat-pool path (four 4-float gathers) for both sample
     and sample_many, across 1x1 / non-square / non-pow2 textures and
-    out-of-range uv (repeat wrap).  (Opt-in knob: measured slower on chip,
-    so the default cap is 0 — forced on here.)"""
+    out-of-range uv (repeat wrap)."""
     import dataclasses
 
     import jax.numpy as jnp

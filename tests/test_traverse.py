@@ -1,7 +1,8 @@
 """Morton-leaf traversal must agree with the dense brute-force sweep."""
 
-import numpy as np
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
 from tpu_pathtracer.ops.intersect import build_woop, closest_hit, tri_capacity
 from tpu_pathtracer.ops.traverse import closest_hit_leaves
@@ -82,3 +83,84 @@ def test_leaf_traversal_small_k_forces_multiround():
     np.testing.assert_allclose(
         np.asarray(leaves.t)[both], np.asarray(dense.t)[both], rtol=1e-5, atol=1e-6
     )
+
+
+@pytest.mark.parametrize("k", [16, 2])
+def test_leaf_traversal_exact_vs_dense(k):
+    """The GPU's closest-hit path (closest_hit_leaves) against the dense
+    sweep on ~2k triangles: identical hit masks, identical triangle ids
+    except on exact ties, and t to 1e-5 relative.  k=2 forces the
+    multi-round tail of the front-to-back loop."""
+    verts, valid = _scene(2000, seed=4, spread=3.0)
+    woop = build_woop(verts, valid)
+    lmin, lmax = build_leaves(verts, valid, LEAF_SIZE)
+    lw = leaf_woop(woop, LEAF_SIZE)
+    o, d = _rays(512, seed=5, spread=4.0)
+    o, d = jnp.asarray(o, jnp.float32), jnp.asarray(d, jnp.float32)
+    dense = closest_hit(o, d, jnp.asarray(woop), EPS)
+    leaves = closest_hit_leaves(
+        o, d, jnp.asarray(lmin), jnp.asarray(lmax), jnp.asarray(lw), EPS, k=k
+    )
+    hit = np.asarray(dense.hit)
+    assert hit.sum() > 100
+    np.testing.assert_array_equal(np.asarray(leaves.hit), hit)
+    np.testing.assert_allclose(
+        np.asarray(leaves.t)[hit], np.asarray(dense.t)[hit], rtol=1e-5
+    )
+    same = np.asarray(leaves.tri)[hit] == np.asarray(dense.tri)[hit]
+    tie = np.isclose(
+        np.asarray(leaves.t)[hit], np.asarray(dense.t)[hit], rtol=1e-6, atol=0
+    )
+    assert (same | tie).all()
+
+
+def test_scene_closest_hit_picks_path_by_capacity(tmp_path):
+    """scene_closest_hit: the dense sweep for capacity <= 1024, the leaf
+    traversal above — each bit-identical to calling that path directly."""
+    import dataclasses
+
+    from tpu_pathtracer.models.pathtracer import gen_rays, scene_closest_hit
+    from tpu_pathtracer.scene.gltf import parse_gltf_scene
+    from tpu_pathtracer.utils.testscenes import (
+        make_cornell_gltf,
+        make_sphere_field_gltf,
+    )
+
+    small = parse_gltf_scene(make_cornell_gltf(str(tmp_path / "c.gltf")), 1.0)
+    big = parse_gltf_scene(
+        make_sphere_field_gltf(str(tmp_path / "f.gltf"), n_spheres=4), 1.0
+    )
+    assert small.capacity <= 1024 < big.capacity
+    pids = jnp.arange(256, dtype=jnp.int32)
+    offs = jnp.full((2, 256), 0.5)
+    for scene, want_fn in (
+        (small, lambda s, o, d: closest_hit(o, d, s.woop, EPS)),
+        (big, lambda s, o, d: closest_hit_leaves(
+            o, d, s.leaf_aabb_min, s.leaf_aabb_max, s.leaf_woop, EPS)),
+    ):
+        scene = dataclasses.replace(scene, camera=scene.camera.with_dims(16, 16))
+        o, d = gen_rays(scene.camera, pids, offs)
+        got = scene_closest_hit(scene, o, d, EPS)
+        want = want_fn(scene, o, d)
+        assert np.asarray(got.hit).any()
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_leaf_traversal_independent_of_batch():
+    """A ray's hit is a function of that ray alone: tracing it beside rays
+    that keep the round loop running longer (k=1, dense clutter) gives the
+    bit-identical record, so wavefront composition (engine, sort order,
+    sharding) cannot change a path."""
+    verts, valid = _scene(640, seed=8, spread=2.0, tri_size=0.8)
+    woop = build_woop(verts, valid)
+    lmin, lmax = build_leaves(verts, valid, LEAF_SIZE)
+    lw = leaf_woop(woop, LEAF_SIZE)
+    args = (jnp.asarray(lmin), jnp.asarray(lmax), jnp.asarray(lw), EPS)
+    o, d = _rays(256, seed=9, spread=4.0)
+    o, d = jnp.asarray(o, jnp.float32), jnp.asarray(d, jnp.float32)
+    alone = closest_hit_leaves(o[:64], d[:64], *args, k=1)
+    mixed = closest_hit_leaves(o, d, *args, k=1)
+    assert np.asarray(alone.hit).any()
+    for a, b in zip(alone, mixed):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b)[:64])

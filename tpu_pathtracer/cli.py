@@ -55,8 +55,7 @@ def render_scene_file(
     # The 5-arg CLI contract has no flag slots (parity with main.cpp), so
     # the estimator-VISIBLE extension the reference lacks is reachable via
     # env: TPU_PATHTRACER_JITTER=sobol swaps the camera jitter for the
-    # Owen-scrambled (0,2)-sequence (config.py `jitter`; perf knobs go
-    # through TPU_PT_* / IntersectTuning instead).
+    # Owen-scrambled (0,2)-sequence (config.py `jitter`).
     env_jitter = os.environ.get("TPU_PATHTRACER_JITTER")
     if env_jitter and env_jitter != config.jitter:
         config = dataclasses.replace(config, jitter=env_jitter)
@@ -112,40 +111,44 @@ def render_scene_file(
     return hdr, metrics
 
 
-def setup_backend() -> None:
-    """Apply backend env overrides + persistent compilation cache.
+# Persistent compilation cache when JAX_COMPILATION_CACHE_DIR is unset: a
+# fixed path inside the checkout, so repeat runs hit it (the path is part
+# of what a cache entry is found by).
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
 
-    ``TPU_PATHTRACER_PLATFORM=cpu`` forces a backend; the compilation cache
-    (default ``~/.cache/tpu_pathtracer/jit``) makes repeat renders skip the
-    multi-minute XLA compile — disable with TPU_PATHTRACER_NO_CACHE=1.
+
+def setup_backend() -> None:
+    """Check the device and set up the persistent compilation cache.
+
+    Raises ``RuntimeError`` when JAX finds no GPU and ``JAX_PLATFORMS`` did
+    not ask for another platform (``JAX_PLATFORMS=cpu`` runs on the CPU):
+    the renderer never falls back to the CPU on its own.  The compilation
+    cache is wherever ``JAX_COMPILATION_CACHE_DIR`` says, if it is set, and
+    :data:`CACHE_DIR` otherwise.
     """
     import jax
 
-    platform = os.environ.get("TPU_PATHTRACER_PLATFORM")
-    if platform:
-        jax.config.update("jax_platforms", platform)
-    # Debug/observability hooks (SURVEY §5: the race-detector/NaN-check
+    if not jax.config.jax_platforms and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            f"no GPU found (JAX backend is {jax.default_backend()!r}); set "
+            "JAX_PLATFORMS=cpu to render on the CPU"
+        )
+    # Debug/observability hook (SURVEY §5: the race-detector/NaN-check
     # analog).  Note the reference's estimator *intentionally* produces NaNs
     # that per-sample sanitization zeroes (src/raytracer.h:607-616), so
     # jax_debug_nans is a kernel-debugging tool, not a default.
     if os.environ.get("TPU_PATHTRACER_DEBUG_NANS"):
         jax.config.update("jax_debug_nans", True)
-    if not os.environ.get("TPU_PATHTRACER_NO_CACHE"):
-        cache_dir = os.environ.get(
-            "TPU_PATHTRACER_CACHE_DIR",
-            os.path.join(os.path.expanduser("~"), ".cache", "tpu_pathtracer", "jit"),
-        )
-        try:
-            os.makedirs(cache_dir, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        except Exception:
-            pass  # cache is an optimization; never fail a render over it
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    setup_backend()
-
+def main(
+    argv: Optional[List[str]] = None, config: RenderConfig = DEFAULT_CONFIG
+) -> int:
+    """Run the 5-argument CLI; ``config`` is for in-process callers."""
     argv = list(sys.argv if argv is None else argv)
     if len(argv) < 6:
         print(
@@ -155,6 +158,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
 
     try:
+        setup_backend()
         width = _strtol(argv[2])
         height = _strtol(argv[3])
         samples = _strtol(argv[4])
@@ -165,7 +169,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         with device_trace(os.environ.get("TPU_PATHTRACER_TRACE_DIR")):
             with timer.phase("load_render"):
                 hdr, metrics = render_scene_file(
-                    argv[1], width, height, samples, timer=timer
+                    argv[1], width, height, samples, config=config,
+                    timer=timer,
                 )
 
         from .utils.image import quantize_u8, write_ppm
@@ -179,9 +184,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             pixels = np.asarray(quantize_u8(hdr))
             if out_path.lower().endswith(".png"):
                 # Capability superset: the reference only writes P6 PPM.
-                from PIL import Image
+                from .utils.png import write_png
 
-                Image.fromarray(pixels).save(out_path)
+                write_png(out_path, pixels)
             else:
                 write_ppm(out_path, pixels)
         timer.report()  # per-phase seconds (SURVEY §5 tracing contract)

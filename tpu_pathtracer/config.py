@@ -10,122 +10,38 @@ a recompile of the framework.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Tuple
-
-
-# Env-override names per IntersectTuning field (the shim the probe/campaign
-# scripts use to A/B a knob without code edits; env wins over the config
-# value when set).  Kept in one table so the shim cannot silently drift from
-# the dataclass.
-_TUNING_ENV = {
-    "mode": "TPU_PT_INTERSECT",
-    "sub_rows": "TPU_PT_SUB",
-    "super_min": "TPU_PT_SUPER_MIN",
-    "super_tbound_min": "TPU_PT_SUPER_TBOUND_MIN",
-    "pass1_min": "TPU_PT_PASS1_MIN",
-    "near": "TPU_PT_NEAR",
-    "max_cap": "TPU_PT_MAX_CAP",
-    "cheap_recheck": "TPU_PT_CHEAP_RECHECK",
-    "gate_recheck": "TPU_PT_GATE_RECHECK",
-    "bins_cap": "TPU_PT_BINS_CAP",
-    "light_items": "TPU_PT_LIGHT_ITEMS",
-    "narrow_tile_chunks": "TPU_PT_NARROW_TILE_CHUNKS",
-    "chunk_tris": "TPU_PT_CHUNK_TRIS",
-    "build": "TPU_PT_BUILD",
-    "quad_max": "TPU_PT_QUAD_MAX",
-    "packed_permute": "TPU_PT_PACKED_PERMUTE",
-}
 
 
 @dataclasses.dataclass(frozen=True)
 class IntersectTuning:
-    """Performance knobs for the Pallas intersector and the scene build.
+    """Scene-build and carry-layout knobs.
 
-    Round 3 grew ~15 TPU_PT_* env vars captured at trace/import time, with
-    silent-no-op semantics on jit cache hits (ADVICE/VERDICT r3 weak #5).
-    They are now config fields — the render path reads them from
-    ``RenderConfig.tuning`` — and the env vars remain only as an override
-    shim applied by :meth:`resolve` (so existing probe/campaign scripts
-    that restart a process per setting keep working).  All knobs are
-    exactness-neutral: every mode/schedule is pinned equal to the dense
-    oracle by tests; only speed moves.
+    All are exactness-neutral: the build only reorders triangles and the
+    carry layout only changes how the per-bounce permutation moves data,
+    so renders are estimator-identical under every setting (pinned by
+    tests); only speed moves.
     """
 
-    # Intersect mode: "items" (compacted work-item cascade, the measured
-    # default), "twopass" (slot-grid cascade), "dense" (A/B oracle),
-    # "bins" (the per-ray binned experiment, opt-in; closed by the round-4
-    # granularity decomposition).
-    mode: str = "items"
-    # Rays per sub-tile for activity gating (power-of-two divisor of the
-    # ray tile; 64 measured optimal — 32 pays narrow-op overhead).
-    sub_rows: int = 64
-    # Column blocks above which the super-block prepass gate engages.
-    super_min: int = 3
-    # Column blocks at/above which cascade RECHECKS recompute the coarse
-    # gate T-BOUNDED (per-ray best t; 0 = never).  Engages at ~1M+
-    # triangles, where probe_scale_r4 showed the unbounded gate stops
-    # pruning (rays pierce most blocks unbounded, but not within best-t).
-    super_tbound_min: int = 16
-    # Minimum near-pass-1 worklist cap (ladder base = max(this, cg // 9)).
-    pass1_min: int = 4
-    # Near-pass ladder multipliers (x base/4 each), comma-separated.
-    near: str = "2,6"
-    # SMEM-budget override for worklist caps (0 = derive from budget).
-    max_cap: int = 0
-    # Cascade recheck form: 0 full slab re-run, 1 cheap stored-entry
-    # comparison, 2 hybrid (cheap between near passes, full pre-residual).
-    cheap_recheck: int = 0
-    # Gate cascade rechecks by live-block bits (1 = on).
-    gate_recheck: int = 1
-    # Bins mode: binned pair-row capacity in multiples of R.
-    bins_cap: int = 12
-    # Max prefetched worklist items per light-pdf kernel window.
-    light_items: int = 48_000
-    # Chunk count past which the intersector uses 256-ray tiles.
-    narrow_tile_chunks: int = 4096
-    # --- scene-build knobs (read at parse time by scene/gltf.py) ---
-    # Triangles per intersector chunk (128 = one VPU lane width; measured
-    # optimal vs 64 on chip).
+    # Triangles per chunk: the SAH build aligns its treelet cuts to this
+    # width and the "hint" sort key buckets rays by chunk id.  Must be a
+    # LEAF_SIZE multiple.
     chunk_tris: int = 128
     # Spatial build: "sah" chunk-aligned sweep-SAH treelets (default) or
-    # "morton" (round-2 LBVH curve, kept for A/B).
+    # "morton" (LBVH curve, kept for A/B).
     build: str = "sah"
     # Corner-quad texture pool texel cap.  The quad pool packs each texel's
     # 2x2 bilinear corner block in one 64 B row, so the shade stage's
-    # bilinear fetch is ONE row gather per (ray, slot) instead of four.
-    # Measured neutral under the round-3 gather pipeline, but +1.3%
-    # end-to-end on the round-5 flat corner-major pipeline (clean A/B on
-    # the committed tree: 326.5k -> 330.9k samples/s, out/campaign_r5.jsonl
-    # base_r5b vs quad_r5b) — default ON with a cap sized for course-scale
-    # scenes (64 B/texel: 32M texels = 2 GB device pool; bigger atlases
-    # fall back to the flat pool).  TPU_PT_QUAD_MAX=0 restores the A/B.
+    # bilinear fetch is ONE row gather per (ray, slot) instead of four
+    # (32M texels = 2 GB device pool; bigger atlases use the flat pool,
+    # 0 turns the pool off).
     quad_max: int = 32 * 1024 * 1024
     # Per-bounce carry permutation form: 0 = one take per carry array,
     # 1 = pack the carries into one wide f32 block + one int32 block and
-    # gather each once (the flat-texture lesson applied to the sort:
-    # minor-dim-3 row gathers run at ~1/32 lane occupancy; on chip the
-    # packed form is ~0.14 vs ~3.7 ms/iter at 64k rays, probe_gap_r4b).
-    # The movement is bit-exact; whole renders are estimator-identical to
-    # fp noise (the layout shifts XLA fusion of the producing ops).
-    # Default ON: bench 14.85 -> 13.92 s (+6.7%, out/campaign_r4.jsonl).
+    # gather each once, 2 = f32 block + one take per int carry.  The
+    # movement is bit-exact; whole renders are estimator-identical to fp
+    # noise (the layout shifts XLA's fusion of the producing ops).
     packed_permute: int = 1
-
-    def resolve(self) -> "IntersectTuning":
-        """Apply TPU_PT_* env overrides on top of the config values.
-
-        Called at trace/parse time by the consumers; a knob changed only in
-        the environment after a program was compiled still requires a fresh
-        trace (new shapes or a process restart), exactly as before — the
-        config path has no such footgun."""
-        over = {}
-        for field, env in _TUNING_ENV.items():
-            raw = os.environ.get(env)
-            if raw is None:
-                continue
-            kind = type(getattr(self, field))
-            over[field] = kind(raw)
-        return dataclasses.replace(self, **over) if over else self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,14 +85,12 @@ class RenderConfig:
         (0.0, -10.0, -0.1),
     )
 
-    # --- TPU-specific execution knobs (no reference analog; replaces the
+    # --- Wavefront execution knobs (no reference analog; they replace the
     # --- SPAN_SIZE/USE_MULTITHREADING thread-pool pair, src/config.h:7-13).
     # Number of rays processed per device per wavefront megabatch.  Spans of
     # 256 pixels fed a CPU thread pool in the reference; here a megabatch
-    # feeds the whole chip and XLA tiles it over the VPU/MXU.  On-chip sweep
-    # (512^2@32spp, 82k tris): 64k beats 16k by ~13% (sorted tiles get more
-    # coherent, fixed per-dispatch costs amortize) and beats 256k (argsort
-    # growth).  The traversal workspace scales with rays, bounding HBM use.
+    # feeds the whole device.  The traversal workspace scales with rays,
+    # bounding device memory use.
     rays_per_batch: int = 1 << 16
 
     # Samples per pixel accumulated per device pass.  The accumulator is
@@ -189,20 +103,13 @@ class RenderConfig:
     # (SURVEY §5 failure-detection contract).  0 disables.
     failure_retries: int = 2
 
-    # Wavefront coherence sort key for large scenes.  "hint": direction
-    # octant x the Morton chunk id of the surface the ray spawned from
-    # (surface-adaptive — much tighter tile unions for incoherent enclosed
-    # secondaries); "cell": direction octant x 16^3 Morton origin cell (the
-    # round-2 key, kept for A/B probes); "target": the worklist group each
-    # ray will FIRST ENTER (Pallas argmin of slab entry over group AABBs) x
-    # octant — geometry-aware, tracks where the ray is GOING rather than
-    # where it spawned; "dirhint": fine-direction bins MAJOR over the spawn
-    # chunk (round-4: the best implementable order in probe_sortkey_proxy,
-    # -20% union activations vs "hint" on atrium secondaries — but LOSES
-    # 9.3% on chip, out/campaign_r4.jsonl); "none": compaction-only order
-    # (dead rays last, live order untouched — prices the coherence value;
-    # also the reference's analog, which never sorts).  Purely a perf
-    # knob: sorting is observationally free (per-pixel counter RNG).
+    # Wavefront coherence sort key for large scenes (ops/sortkeys.py).
+    # "hint": direction octant x the spatially ordered chunk id of the
+    # surface the ray spawned from; "cell": direction octant x 16^3 Morton
+    # origin cell; "dirhint": fine-direction bins major over the spawn
+    # chunk; "none": compaction-only order (dead rays last, live order
+    # untouched — the reference's analog, which never sorts).  Purely a
+    # perf knob: sorting is observationally free (per-pixel counter RNG).
     sort_key: str = "hint"
 
     # Frame pool (compaction engine, single-host render() path only): each
@@ -227,8 +134,8 @@ class RenderConfig:
     # "sobol" swaps ONLY the camera-jitter draws for an Owen-scrambled
     # (0,2)-sequence under the same counter discipline (ops/rng.py) —
     # an estimator-visible quality upgrade the reference never had: same
-    # wall clock, visibly lower pixel variance at equal spp (A/B ledger in
-    # out/).  Off by default so every reference-parity test is untouched.
+    # work, lower pixel variance at equal spp (test_rng.py pins it).  Off
+    # by default so every reference-parity test is untouched.
     jitter: str = "uniform"
 
     # Low-discrepancy BOUNCE draws: "sobol" replaces the two highest-variance
@@ -238,12 +145,11 @@ class RenderConfig:
     # threefry uniforms.  Same counter discipline as jitter="sobol", so all
     # reproducibility properties hold; "off" (default) reproduces the
     # reference estimator draw-for-draw.  Compose with jitter="sobol" for
-    # the full quality stack (equal-spp RMSE A/B in out/sobol_ab.json).
+    # the full quality stack.
     lowdisc: str = "off"
 
-    # Intersector / scene-build performance knobs (exactness-neutral; see
-    # IntersectTuning).  TPU_PT_* env vars override individual fields as a
-    # probe shim.
+    # Scene-build and carry-layout knobs (exactness-neutral; see
+    # IntersectTuning).
     tuning: IntersectTuning = IntersectTuning()
 
 

@@ -33,8 +33,7 @@ def specular_brdf(
     h = halfway(in_dir, out_dir)
     ndh = dot(normal, h)
     a2 = alpha * alpha
-    # One divide per term (chained /PI/.../div1/div2 compiled as separate
-    # divides; divides dominate the VPU elementwise cost — round-5 scan).
+    # One divide per term instead of the chained /PI/.../div1/div2.
     d = a2 * heaviside(ndh) / (PI * (ndh * ndh * (a2 - 1.0) + 1.0) ** 2)
     ndo = dot(normal, out_dir)
     ndi = dot(normal, -in_dir)

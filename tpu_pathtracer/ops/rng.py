@@ -1,13 +1,11 @@
-"""Counter-based threefry-2x32 uniforms in TPU-friendly lane-major layout.
+"""Counter-based threefry-2x32 uniforms in lane-major layout.
 
 The estimator draws ~10 uniforms per (pixel, sample, depth) lane.  Routing
 those through ``jax.random`` (vmapped ``fold_in`` + per-lane ``uniform``)
-produces ``[R, n_draws]`` intermediates whose minor dim is the *draw* axis —
-5-10 lanes of a 128-lane vector register, i.e. >90% of every VPU op wasted;
-measured at ~4 ms per 16k-ray bounce on chip, comparable to the whole
-intersection kernel.  This module computes the same *kind* of stream (full
-threefry-2x32, the same PRNG family jax uses) directly in counter mode with
-the ray axis minor, so every u32 op runs at full lane occupancy.
+produces ``[R, n_draws]`` intermediates whose minor dim is the short *draw*
+axis.  This module computes the same *kind* of stream (full threefry-2x32,
+the same PRNG family jax uses) directly in counter mode with the ray axis
+minor, so every u32 op runs over the long ray axis.
 
 Stream discipline (the framework's reproducibility anchor — replaces the
 reference's per-span LCG seeding, src/raytracer.h:648): every uniform is
@@ -114,7 +112,7 @@ def lane_uniforms(
     return jnp.stack(draws[:n_draws], axis=0)
 
 # ---------------------------------------------------------------------------
-# Low-discrepancy pixel jitter: Owen-scrambled 2D Sobol (round-4 stretch).
+# Low-discrepancy pixel jitter: Owen-scrambled 2D Sobol.
 #
 # The reference jitters camera rays with plain uniforms
 # (src/raytracer.h:527-538 via its per-span LCG); so does this framework by
@@ -205,8 +203,7 @@ def sobol_owen_pair(
     tag: int,  # domain tag selecting WHICH estimator pair (vndf / light)
 ) -> jnp.ndarray:  # [2, R] f32 in [0, 1)
     """Owen-scrambled (0,2) point ``sample`` of the per-(pixel, depth, tag)
-    sequence — the bounce-draw extension of :func:`sobol_owen_2d`
-    (VERDICT r4 #6).  Each (pixel, depth, tag) owns an independently
+    sequence — the bounce-draw extension of :func:`sobol_owen_2d`.  Each (pixel, depth, tag) owns an independently
     scrambled copy of the same (0,2)-net over the sample index, so each
     pixel's N samples stratify every estimator pair (VNDF u1/u2, light
     point u/v) at every depth while distinct pixels/depths/pairs stay

@@ -52,10 +52,7 @@ def choose_local_x(n: jnp.ndarray) -> jnp.ndarray:
     use_x = jnp.abs(n[..., 0]) > 0.5
     use_y = (~use_x) & (jnp.abs(n[..., 1]) > 0.5)
     use_z = ~(use_x | use_y)
-    # The divide runs on 1-D [R] operands: [R, 1]-shaped elementwise ops get
-    # the {1,0:T(8,128)} single-lane tiling (1/128 VPU occupancy — the
-    # round-5 device trace priced one such divide pair at 0.55 ms/iter),
-    # while 1-D arrays tile dense T(1024).
+    # The divide runs on 1-D [R] operands rather than [R, 1] columns.
     denom = jnp.where(use_x, n[..., 0], jnp.where(use_y, n[..., 1], n[..., 2]))
     corr = (s / denom)[..., None]
     axis = (
@@ -136,16 +133,13 @@ def vndf_pdf(
     ) / 2.0
     g1 = 1.0 / (1.0 + lam)
     # length2 of the alpha-scaled half vector, without materialising the
-    # stacked [R, 3] intermediate: the two component divides of the stacked
-    # form compiled to [R, 1]{1,0:T(8,128)} single-lane ops (0.55 ms/iter in
-    # the round-5 device trace); the folded 1-D form is one dense divide.
+    # stacked [R, 3] intermediate: the folded 1-D form is one divide.
     # Same math as |(n.x/a, n.y/a, n.z)|^2 (src/raytracer.h:196-199) to ulp.
     len_ns = (n[..., 0] ** 2 + n[..., 1] ** 2) / (roughness * roughness) + (
         n[..., 2] ** 2
     )
-    # One divide per quantity (was 3 + 1 + 2 chained divides; divides are
-    # the VPU's slowest elementwise op and several compiled into narrow
-    # [R, 1] fusions — round-5 scan_lane_waste).  Same values to fp ulp.
+    # One divide per quantity instead of 3 + 1 + 2 chained divides.  Same
+    # values to fp ulp.
     dn = 1.0 / (PI * roughness * roughness * len_ns * len_ns)
     dv = g1 * vdn * dn / jnp.maximum(eps, v[..., 2])
     res = dv / (4.0 * vdn)

@@ -11,7 +11,7 @@ semantics are preserved on purpose:
   (src/geometry.h:572-574).
 
 Fetches are four dynamic row-gathers from the flat [T, 4] texel pool — the
-TPU-side replacement for chasing ``const Texture*`` pointers per hit.
+wavefront replacement for chasing ``const Texture*`` pointers per hit.
 """
 
 from __future__ import annotations
@@ -58,9 +58,8 @@ def sample(
 
     if atlas.quad is not None:
         # One 16-float row per ray instead of four 4-float rows: the quad
-        # pool pre-gathers the mod_inc-wrapped corners (types.quad_pool),
-        # and on-chip gather cost is per-row.  Same texel values -> the
-        # bilinear result is bit-equal.
+        # pool pre-gathers the mod_inc-wrapped corners (types.quad_pool).
+        # Same texel values -> the bilinear result is bit-equal.
         rows = atlas.quad[off + px + py * w]  # [R, 16]
         c00, c01, c10, c11 = (
             decode(rows[:, 4 * i : 4 * i + 4]) for i in range(4)
@@ -84,9 +83,8 @@ def sample_many(
     tex_ids: jnp.ndarray,  # [R, K] int32 (K textures sampled at the same uv)
     uv: jnp.ndarray,  # [R, 2]
     gammas,  # length-K tuple of static floats
-    flat: bool = False,  # True -> [R, 4K] (lane = tex*4 + channel): skips
-    #   the [R,K,4] output reshape, which the round-4 device trace priced
-    #   at 0.71 ms/iter (minor-dim-4 relayout); hot callers lane-slice.
+    flat: bool = False,  # True -> [R, 4K] (column = tex*4 + channel): skips
+    #   the [R,K,4] output reshape; hot callers slice columns.
 ) -> jnp.ndarray:  # [R, K, 4] (or [R, 4K] when flat)
     """Fused multi-texture bilinear fetch: all K textures' 4 corner texels
     gathered in ONE [R, 4K] row-gather from the pool (the shade stage reads
@@ -107,14 +105,11 @@ def sample_many(
     px1 = jnp.where(px == w - 1, 0, px + 1)  # mod_inc (src/geometry.h:521-523)
     py1 = jnp.where(py == h - 1, 0, py + 1)
 
-    # FLAT corner-major lanes.  The round-4 device trace showed the old
-    # [R, K, 4corner, 4rgba] pipeline was ~8.6 ms/iter of the engine:
-    # minor dims of 4 tile as (8, 128) vregs at 1/32 lane occupancy, and
-    # every pow/select/lerp materialized an [R,4,4,4] intermediate plus
-    # layout copies (copy.1520 alone 1.6 ms/iter).  Operating on [R, 16K]
-    # with lane = (corner*K + tex)*4 + channel keeps the corner slices
-    # contiguous ([R, 4K] each) and every elementwise op >= 50%
-    # lane-occupied.  Arithmetic per element is IDENTICAL (same
+    # FLAT corner-major columns instead of an [R, K, 4corner, 4rgba]
+    # pipeline (whose every pow/select/lerp materialized an [R, 4, 4, 4]
+    # intermediate).  Operating on [R, 16K] with column =
+    # (corner*K + tex)*4 + channel keeps the corner slices contiguous
+    # ([R, 4K] each).  Arithmetic per element is IDENTICAL (same
     # pow/bypass, same lerp order), so results stay bit-equal — on both
     # branches: the quad pool's K 16-float rows (4x fewer gather rows)
     # are brought into the same corner-major order by one transpose.

@@ -2,7 +2,7 @@
 
 The reference generates a 3.9k-line header of vec2/3/4 + color types from a
 Python codegen (``codegen/vectors.py``, ``src/generated/vectors.generated.inline.h``).
-On TPU the whole layer collapses to jnp broadcasting over a trailing axis of
+In JAX the whole layer collapses to jnp broadcasting over a trailing axis of
 size 3; swizzles are index selections.  Hand-written pieces of
 ``src/geometry.h`` (cross/det/norm/reflect, quaternion rotation, TRS
 matrices, the fast inverse-transpose used for normals) are reimplemented here
@@ -72,14 +72,9 @@ def where3(mask, a, b):
 # ---------------------------------------------------------------------------
 # Planar ([3, R] component-major) twins.
 #
-# The round-5 device trace showed the shade stage's [R, 3]/[R, 1] tensors
-# bouncing between XLA's transposed elementwise layouts ({0,1:T(4,128)})
-# and the row-major gather/Pallas layouts ({1,0:T(8,128)}) through ~45
-# pure layout-conversion copies (~2 ms/iter at 64k rays).  In [3, R] form
-# the ray axis is the minor (lane) dim, every elementwise op runs at full
-# lane occupancy in R/128 vregs (vs R/8 vregs at 3/128 occupancy for
-# [R, 3] row-major), and there is no transposed-layout alternative for XLA
-# to convert to and from.  Same arithmetic, same operand order per
+# In [3, R] form the ray axis is the minor dim, so every elementwise op
+# runs over the long axis and XLA has no transposed-layout alternative to
+# convert [R, 3] operands to and from.  Same arithmetic, same operand order per
 # component — results match the [..., 3] forms to fp associativity.
 # ---------------------------------------------------------------------------
 

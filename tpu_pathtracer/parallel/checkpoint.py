@@ -28,7 +28,7 @@ from ..scene.types import TriangleScene
 # Config fields that change HOW the render executes but not WHAT estimator
 # it computes (sample-for-sample identical output up to fp summation order).
 # Excluded from the fingerprint so tuning them between sessions cannot
-# silently discard a resumable accumulator (ADVICE r3).
+# silently discard a resumable accumulator.
 _EXECUTION_KNOBS = (
     "rays_per_batch",
     "spp_per_pass",
@@ -153,7 +153,7 @@ def render_with_checkpoints(
             state = cand
         else:
             # A rejected checkpoint restarts from sample 0 — say so instead
-            # of silently discarding the old accumulator (ADVICE r3).
+            # of silently discarding the old accumulator.
             import sys
 
             print(

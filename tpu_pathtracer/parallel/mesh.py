@@ -2,13 +2,13 @@
 
 The reference's entire parallel runtime is a shared-memory thread pool pulling
 256-pixel spans off one ``std::atomic_int`` (src/raytracer.h:635-665, SURVEY
-§2 C10).  The TPU equivalent is SPMD over a device mesh:
+§2 C10).  The multi-device equivalent is SPMD over a device mesh:
 
 * axis ``"rays"`` — pixels sharded across devices (the DP analog of spans);
 * axis ``"spp"``  — sample ranges sharded across devices, merged with a
-  ``psum`` that rides the ICI;
+  ``psum`` over the device interconnect;
 * the scene (triangles, materials, atlas, light set) is *replicated* —
-  course-scale scenes are far below per-chip HBM, exactly like every worker
+  course-scale scenes are far below per-device memory, exactly like every worker
   thread sharing the read-only ``RaytracerStaticContext``.
 
 The dynamic atomic span queue becomes static even sharding: XLA's SPMD model
@@ -67,9 +67,9 @@ def render_pass_sharded(
 
     The second output is the TRUE bounce-ray count as a per-'rays'-rank
     vector [n_rays_mesh] (live lanes entering each bounce, psum-merged over
-    'spp' only — round-4: sharded renders report the same measured-rays
-    metric the single-host path does).  Per-rank because one mesh-wide
-    int32 psum can wrap at pod scale (rank counts are individually bounded
+    'spp' only — sharded renders report the same measured-rays metric the
+    single-host path does).  Per-rank because one mesh-wide
+    int32 psum can wrap on large meshes (rank counts are individually bounded
     by the engine's int32 pool guard; the host sums them in int64).  Padded
     tail pixels past the frame are EXCLUDED from both radiance and the
     counter (pix_count per rank), exactly like the single-host render; the
@@ -145,7 +145,7 @@ def render_pass_sharded(
             jnp.zeros((n_local, 3), jnp.float32), ("rays", "spp"), to="varying"
         )
         acc = jax.lax.fori_loop(0, spp_local, body, acc0)
-        # Merge the sample shards over ICI; every 'spp' rank ends up with the
+        # Merge the sample shards; every 'spp' rank ends up with the
         # full mean so the output is replicated along that axis.
         acc = jax.lax.psum(acc, "spp")
         # The scan engine traces no ray counter; report 0 (as render() does).
@@ -178,8 +178,8 @@ def render_sharded(
     ``sample_start + spp - 1`` of the seed's counter stream — the offset is
     how multi-host slices stay disjoint).
 
-    Operational parity with the single-host ``render`` (round-4, VERDICT r3
-    next #5): ``stats["measured_rays"]`` reports the mesh-wide TRUE bounce
+    Operational parity with the single-host ``render``:
+    ``stats["measured_rays"]`` reports the mesh-wide TRUE bounce
     count under the compaction engine, and failed device executions are
     repaired by recomputing the affected pass (counter RNG makes the
     recompute sample-exact, so retried passes are identical)."""
@@ -195,9 +195,8 @@ def render_sharded(
     spp = max(int(spp), 1)
 
     n_rays_mesh = mesh.shape["rays"]
-    # Global chunk = per-device batch * ray shards, with the per-device batch
-    # rounded up to the Pallas ray tile so sharded renders keep the fast
-    # intersector (pick_chunk pads; extra pixel ids render and are dropped).
+    # Global chunk = per-device batch * ray shards (pixel ids past the frame
+    # are masked out of both radiance and the ray counter).
     from ..models.pathtracer import pick_chunk
 
     per_dev = pick_chunk(config, -(-npix // n_rays_mesh))
@@ -226,7 +225,7 @@ def render_sharded(
             try:
                 host = np.asarray(rad[:n])
                 # Per-'rays'-rank counts; int64 host sum (a mesh-wide int32
-                # psum could wrap at pod scale).
+                # psum could wrap on large meshes).
                 pass_rays = int(np.asarray(nb).astype(np.int64).sum())
                 break
             except Exception:  # device/runtime crash surfaced at readback

@@ -111,8 +111,8 @@ class Renderer:
 
             image = np.asarray(quantize_u8(jnp.asarray(image)))
         if path.lower().endswith(".png"):
-            from PIL import Image
+            from .utils.png import write_png
 
-            Image.fromarray(image).save(path)
+            write_png(path, image)
         else:
             write_ppm(path, image)

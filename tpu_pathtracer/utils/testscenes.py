@@ -19,6 +19,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .png import write_png
+
 
 class GltfBuilder:
     def __init__(self) -> None:
@@ -313,7 +315,6 @@ def make_cornell_gltf(path: str, light_strength: float = 20.0) -> str:
 def make_env_image(path: str) -> str:
     """Deterministic equirect 'sky' image (horizontal hue bands + vertical
     brightness gradient) for environment-map parity tests."""
-    from PIL import Image
 
     h, w = 32, 64
     yy, xx = np.mgrid[0:h, 0:w]
@@ -322,7 +323,7 @@ def make_env_image(path: str) -> str:
     b = (255 * (0.3 + 0.7 * yy / (h - 1))).astype(np.uint8)
     img = np.stack([r, g, b], axis=-1)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    Image.fromarray(img).save(path)
+    write_png(path, img)
     return path
 
 
@@ -349,18 +350,17 @@ def make_textured_cornell_gltf(path: str, light_strength: float = 20.0) -> str:
     a gradient metallic-roughness texture on the back wall — exercises the
     texture atlas, bilinear fetch, per-texel gamma decode and the glTF B=metal
     / G=rough channel convention (src/geometry.h:623-626)."""
-    from PIL import Image
 
     d = os.path.dirname(path) or "."
     os.makedirs(d, exist_ok=True)
     checker = np.zeros((8, 8, 3), dtype=np.uint8)
     checker[(np.indices((8, 8)).sum(axis=0) % 2) == 0] = (230, 200, 120)
     checker[(np.indices((8, 8)).sum(axis=0) % 2) == 1] = (40, 60, 160)
-    Image.fromarray(checker).save(os.path.join(d, "checker.png"))
+    write_png(os.path.join(d, "checker.png"), checker)
     mr = np.zeros((8, 8, 3), dtype=np.uint8)
     mr[..., 1] = np.linspace(30, 220, 8, dtype=np.uint8)[None, :]  # roughness G
     mr[..., 2] = np.linspace(220, 30, 8, dtype=np.uint8)[:, None]  # metallic B
-    Image.fromarray(mr).save(os.path.join(d, "mr.png"))
+    write_png(os.path.join(d, "mr.png"), mr)
 
     b = GltfBuilder()
     checker_tex = b.add_texture("checker.png")
@@ -420,8 +420,6 @@ def make_sphere_field_gltf(
         # Sponza-class workloads are heavily textured (README.md:4-5, fetches
         # at src/bvh.h:107-120): give the bench real bilinear traffic —
         # 4 distinct 64x64 baseColor maps, one MR map, one normal map.
-        from PIL import Image
-
         yy, xx = np.mgrid[0:64, 0:64]
         for k in range(4):
             img = np.stack(
@@ -432,19 +430,19 @@ def make_sphere_field_gltf(
                 ],
                 axis=-1,
             ).astype(np.uint8)
-            Image.fromarray(img).save(os.path.join(d, f"bc{k}.png"))
+            write_png(os.path.join(d, f"bc{k}.png"), img)
             tex_kw[k]["base_color_texture"] = b.add_texture(f"bc{k}.png")
         mr = np.zeros((64, 64, 3), dtype=np.uint8)
         mr[..., 1] = (yy * 4 % 256).astype(np.uint8)  # roughness G
         mr[..., 2] = (xx * 4 % 256).astype(np.uint8)  # metallic B
-        Image.fromarray(mr).save(os.path.join(d, "mr.png"))
+        write_png(os.path.join(d, "mr.png"), mr)
         mr_tex = b.add_texture("mr.png")
         for k in range(4):
             tex_kw[k]["metallic_roughness_texture"] = mr_tex
         nrm = np.full((32, 32, 3), 128, dtype=np.uint8)
         nrm[..., 2] = 255
         nrm[::4, :, 0] = 180  # mild bump stripes
-        Image.fromarray(nrm).save(os.path.join(d, "nrm.png"))
+        write_png(os.path.join(d, "nrm.png"), nrm)
         floor_kw["base_color_texture"] = tex_kw[0]["base_color_texture"]
         floor_kw["normal_texture"] = b.add_texture("nrm.png")
 
@@ -563,10 +561,10 @@ def make_atrium_gltf(
 
     The reference's only published number is *enclosed* Sponza
     (/root/reference/README.md:4): an atrium with long multi-bounce paths,
-    heavy colonnade occlusion and no environment escape.  The round-2 bench
-    scene (make_sphere_field_gltf) is an OPEN field where many paths reach
-    the environment after 1-2 bounces, which flatters pixel-samples/s
-    (VERDICT r2 missing #3).  This scene reproduces the atrium's structure
+    heavy colonnade occlusion and no environment escape.  The sphere field
+    (make_sphere_field_gltf) is an OPEN scene where many paths reach the
+    environment after 1-2 bounces, which flatters pixel-samples/s.  This
+    scene reproduces the atrium's structure
     instead:
 
     * a fully walled + ceilinged hall (no ray can leave the scene);
@@ -589,36 +587,32 @@ def make_atrium_gltf(
 
     mat_kw: dict = {"floor": {}, "wall": {}, "column": {}, "drape": {}}
     if textured:
-        from PIL import Image
-
         yy, xx = np.mgrid[0:64, 0:64]
         tiles = ((xx // 8 + yy // 8) % 2 * 120 + 90).astype(np.uint8)
-        Image.fromarray(
-            np.stack([tiles, (tiles * 0.9).astype(np.uint8),
-                      (tiles * 0.75).astype(np.uint8)], axis=-1)
-        ).save(os.path.join(d, "at_floor.png"))
+        write_png(os.path.join(d, "at_floor.png"), np.stack(
+            [tiles, (tiles * 0.9).astype(np.uint8),
+             (tiles * 0.75).astype(np.uint8)], axis=-1))
         brick = (
             ((yy // 8) % 2 * 0 + ((xx + (yy // 8 % 2) * 8) // 16 + yy // 8) % 2)
             * 70 + 120
         ).astype(np.uint8)
-        Image.fromarray(
-            np.stack([brick, (brick * 0.8).astype(np.uint8),
-                      (brick * 0.65).astype(np.uint8)], axis=-1)
-        ).save(os.path.join(d, "at_wall.png"))
+        write_png(os.path.join(d, "at_wall.png"), np.stack(
+            [brick, (brick * 0.8).astype(np.uint8),
+             (brick * 0.65).astype(np.uint8)], axis=-1))
         marble = (
             128 + 90 * np.sin(xx * 0.35 + 3.0 * np.sin(yy * 0.12))
         ).clip(0, 255).astype(np.uint8)
-        Image.fromarray(np.stack([marble] * 3, axis=-1)).save(
-            os.path.join(d, "at_marble.png")
+        write_png(
+            os.path.join(d, "at_marble.png"), np.stack([marble] * 3, axis=-1)
         )
         mr = np.zeros((64, 64, 3), dtype=np.uint8)
         mr[..., 1] = (120 + tiles // 2).astype(np.uint8)  # roughness G
         mr[..., 2] = (xx * 2 % 96).astype(np.uint8)  # metallic B (low)
-        Image.fromarray(mr).save(os.path.join(d, "at_mr.png"))
+        write_png(os.path.join(d, "at_mr.png"), mr)
         nrm = np.full((64, 64, 3), 128, dtype=np.uint8)
         nrm[..., 2] = 255
         nrm[(yy // 8) % 2 == 0, 0] = 160  # mortar-line bumps
-        Image.fromarray(nrm).save(os.path.join(d, "at_nrm.png"))
+        write_png(os.path.join(d, "at_nrm.png"), nrm)
         floor_t = b.add_texture("at_floor.png")
         wall_t = b.add_texture("at_wall.png")
         marble_t = b.add_texture("at_marble.png")
